@@ -1,4 +1,4 @@
-"""Repo-root conftest so `ppcseq_tpu` imports without installation."""
+"""Repo-root conftest so `ppcseq` imports without installation."""
 import os
 import sys
 

@@ -1,16 +1,17 @@
-// Native host-side runtime for ppcseq_tpu.
+// Native host-side runtime for ppcseq.
 //
 // The reference's native layer is the stanc-generated C++ model plus
 // edgeR's C internals (SURVEY.md §2, L1). In this framework the device
-// compute path is XLA/Pallas; what remains on the host per fit is data
+// compute path is XLA; what remains on the host per fit is data
 // preparation: pivoting the tidy long table into dense [S, G] arrays and
 // the TMM trimmed-mean inner loop (rank + trim + weighted mean per sample,
 // called once per sample against the reference column). Those are
-// implemented here and loaded via ctypes (see ppcseq_tpu/_native.py), with
+// implemented here and loaded via ctypes (see ppcseq/_native.py), with
 // NumPy fallbacks kept in the Python modules — semantics are identical and
 // golden-tested against each other.
 //
-// Build: make -C native   (g++ -O3 -march=native -shared -fPIC)
+// Build: ppcseq/_native.py compiles it at first use; `make -C native` does
+// the same by hand (g++ -O3 -shared -fPIC).
 
 #include <algorithm>
 #include <cmath>

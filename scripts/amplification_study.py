@@ -52,8 +52,8 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
 
-    from ppcseq_tpu import identify_outliers, load_counts
-    from ppcseq_tpu.utils.compilation_cache import enable as enable_xla_cache
+    from ppcseq import identify_outliers, load_counts
+    from ppcseq.utils.compilation_cache import enable as enable_xla_cache
 
     enable_xla_cache()
 

@@ -36,13 +36,13 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from ppcseq_tpu import load_counts
-    from ppcseq_tpu.data import ingest
-    from ppcseq_tpu.formula.design import create_design_matrix
-    from ppcseq_tpu.infer.diagnostics import summarize as diag_summarize
-    from ppcseq_tpu.infer.nuts import run_nuts
-    from ppcseq_tpu.model import nb_model
-    from ppcseq_tpu.norm.tmm import sample_scaling
+    from ppcseq import load_counts
+    from ppcseq.data import ingest
+    from ppcseq.formula.design import create_design_matrix
+    from ppcseq.infer.diagnostics import summarize as diag_summarize
+    from ppcseq.infer.nuts import run_nuts
+    from ppcseq.model import nb_model
+    from ppcseq.norm.tmm import sample_scaling
 
     counts = load_counts()
     counts["is_significant"] = counts.FDR < 0.01

@@ -5,88 +5,52 @@ The reference's only runnable workload is its own test/README configuration
 (tests/testthat/test-ppcSeq.R: 3 check genes + 50 negative controls, VB;
 README.md:58-74: 15 FDR<0.01 genes + 500 controls). This times the full
 two-pass pipeline — ingest, TMM, design, ADVI/HMC fits, PPC simulation,
-extraction, merge — for those configurations on the current JAX platform,
-cold (includes compilation) and warm (compiled executables cached; the
-steady-state cost of repeated cohort analyses, e.g. across contrasts).
+extraction, merge — for those configurations (chip_smoke.bundled_configs,
+with their pinned calls), cold (includes compilation) and warm (compiled
+executables cached; the steady-state cost of repeated cohort analyses, e.g.
+across contrasts).
 
-Writes one JSON line per configuration. Run on TPU (default platform) for
-the committed PIPELINE_BENCH artifact; on CPU it doubles as a regression
-guard for compile-cache behavior (warm must be several times faster).
+Writes one JSON line with every configuration. On the CPU (--cpu) it
+doubles as a regression guard for compile-cache behavior (warm must be
+several times faster).
 
-Usage: python scripts/bench_pipeline.py [--quick]  (--quick: 3-gene only)
+Usage: python scripts/bench_pipeline.py [--quick] [--cpu]
+  (--quick: 3-gene VB only; fails without a GPU unless --cpu is given)
 """
 
 import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def run_config(tag, counts, kwargs):
-    from ppcseq_tpu import identify_outliers
+def main(quick=False, cpu=False):
+    from ppcseq.utils import device
 
-    t0 = time.time()
-    res = identify_outliers(counts, **kwargs)
-    cold = time.time() - t0
-    t0 = time.time()
-    res = identify_outliers(counts, **kwargs)
-    warm = time.time() - t0
-    calls = (
-        res["tot_deleterious_outliers"].tolist()
-        if "tot_deleterious_outliers" in res
-        else None
-    )
-    return {
-        "config": tag,
-        "cold_s": round(cold, 2),
-        "warm_s": round(warm, 2),
-        "genes_checked": len(res),
-        "tot_deleterious_outliers": calls,
-    }
+    if cpu:
+        device.force_cpu()
+    dev_info = device.describe(cpu=cpu)
 
+    from chip_smoke import bundled_configs, run_identify
+    from ppcseq import load_counts
 
-def main(quick=False):
-    import jax
-
-    from ppcseq_tpu import load_counts
-
-    counts = load_counts()
-    base = dict(
-        formula="~ Label", sample="sample", transcript="symbol",
-        abundance="value", significance="PValue", do_check="is_significant",
-        seed=42,
-    )
-
+    configs = bundled_configs(load_counts())
     rows = []
-    three = counts.assign(
-        is_significant=counts.symbol.isin(["SLC16A12", "CYP1A1", "ART3"])
-    )
-    rows.append(run_config(
-        "3gene_vb_approx (reference test config)", three,
-        dict(base, percent_false_positive_genes=5, how_many_negative_controls=50),
-    ))
-    if not quick:
-        rows.append(run_config(
-            "3gene_hmc_full", three,
-            dict(base, percent_false_positive_genes=5,
-                 how_many_negative_controls=50,
-                 approximate_posterior_inference=False,
-                 approximate_posterior_analysis=False),
-        ))
-        readme = counts.assign(is_significant=counts.FDR < 0.01)
-        rows.append(run_config(
-            "15gene_vb_approx (reference README config)", readme,
-            dict(base, percent_false_positive_genes=5,
-                 how_many_negative_controls=500),
-        ))
+    for tag, df, check, kwargs in configs[:1] if quick else configs:
+        runs = run_identify(tag, df, check, **kwargs)
+        rows.append({
+            "config": tag,
+            "cold_s": runs[0]["wall_s"],
+            "warm_s": runs[1]["wall_s"],
+            "genes_checked": len(runs[1]["calls"]),
+            "tot_deleterious_outliers": runs[1]["calls"],
+        })
 
     out = {
         "metric": "identify_outliers_wall_clock",
-        "platform": jax.default_backend(),
-        "device": str(jax.devices()[0]),
+        **dev_info,
         "rows": rows,
         "note": (
             "cold includes XLA compilation; warm reuses the compiled "
@@ -103,5 +67,6 @@ def main(quick=False):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--cpu", action="store_true", help="measure the CPU backend")
     args = ap.parse_args()
-    main(quick=args.quick)
+    main(quick=args.quick, cpu=args.cpu)

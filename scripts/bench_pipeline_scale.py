@@ -1,4 +1,4 @@
-"""The PRODUCT at 50k genes: one `identify_outliers` end to end on TPU.
+"""The PRODUCT at 50k genes: one `identify_outliers` end to end on the GPU.
 
 The 50k-gene figure in the README was previously sampler-level only
 (scripts/bench_scale.py); this runs the real two-pass product — threshold
@@ -12,8 +12,10 @@ at-scale configuration the README advertises).
 Records wall clock (cold + warm via checkpoint-free rerun), peak device
 memory, and calls-sanity against the injected outlier truth.
 
-    python scripts/bench_pipeline_scale.py [--json PIPELINE_SCALE_r5.json]
+    python scripts/bench_pipeline_scale.py [--json OUT.json] [--cpu]
         [--genes 50000 --samples 100 --check 100]
+
+It fails without a GPU unless --cpu is given.
 """
 
 from __future__ import annotations
@@ -38,74 +40,40 @@ def main():
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
 
+    from ppcseq.utils import device
+
     if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-
+        device.force_cpu()
     import jax
 
-    from ppcseq_tpu.pipeline.identify import identify_outliers
-    from ppcseq_tpu.utils.synthetic import synthetic_cohort, synthetic_tidy
+    dev_info = device.describe(cpu=args.cpu)
 
-    df = synthetic_tidy(
-        n_genes=args.genes, n_samples=args.samples, n_check=args.check,
-        outlier_frac=0.002, seed=0,
-    )
-    _, _, _, truth = synthetic_cohort(
-        n_genes=args.genes, n_samples=args.samples, n_check=args.check,
-        outlier_frac=0.002, seed=0,
-    )
-    spiked = set(map(tuple, truth["outliers"]))
+    from chip_smoke import flagged_cells, run_identify, scale_cohort
+
+    df, spiked, kwargs = scale_cohort(args.genes, args.samples, args.check)
     print(f"cohort: {args.genes} genes x {args.samples} samples, "
           f"{args.check} checked, {len(spiked)} injected outlier cells", flush=True)
 
-    dev = jax.local_devices()[0]
-
-    def run():
-        t0 = time.time()
-        res = identify_outliers(
-            df, formula="~ Label",
-            sample="sample", transcript="transcript", abundance="count",
-            significance="PValue", do_check="do_check",
-            percent_false_positive_genes=1.0,
-            how_many_negative_controls=args.genes - args.check,
-            approximate_posterior_inference=True,   # VB default
-            approximate_posterior_analysis=True,    # approximated CI
-            seed=42,
-        )
-        return res, time.time() - t0
-
-    res_cold, wall_cold = run()
-    stats = dev.memory_stats() or {}
+    runs = run_identify("synthetic", df, lambda got: None, **kwargs)
+    stats = jax.local_devices()[0].memory_stats() or {}
     peak = stats.get("peak_bytes_in_use")  # None where the backend has no stats
-    res_warm, wall_warm = run()
-
+    res_cold = runs[0]["result"]
+    wall_cold, wall_warm = runs[0]["wall_s"], runs[1]["wall_s"]
     calls = int(res_cold.tot_deleterious_outliers.sum())
     ppc_failed = int(res_cold.ppc_samples_failed.sum())
-    # which injected spiked cells were flagged (S,G cells of checked genes)
-    flagged = set()
-    tcol = "transcript"
-    for _, row in res_cold.iterrows():
-        swd = row["sample_wise_data"]
-        bad = swd[~swd["posterior_predictive_check_succeded"].astype(bool)]
-        for _, r in bad.iterrows():
-            flagged.add((int(r["S"]), int(r["G"])))
-    hits = len(spiked & flagged)
+    hits = len(spiked & flagged_cells(res_cold))
 
     out = {
-        "what": ("identify_outliers END TO END at 50k-gene scale on "
-                 f"{dev.device_kind}: two passes, VB + approximated CI, fit "
-                 "covers all genes (100 checked + rest as controls)"),
+        "what": ("identify_outliers END TO END at 50k-gene scale: two "
+                 "passes, VB + approximated CI, fit covers all genes "
+                 "(100 checked + rest as controls)"),
         "script": "scripts/bench_pipeline_scale.py",
-        "platform": jax.default_backend(),
-        "device": str(dev),
+        **dev_info,
         "genes": args.genes,
         "samples": args.samples,
         "checked": args.check,
-        "wall_cold_s": round(wall_cold, 1),
-        "wall_warm_s": round(wall_warm, 1),
+        "wall_cold_s": wall_cold,
+        "wall_warm_s": wall_warm,
         "peak_device_bytes": None if peak is None else int(peak),
         "peak_device_gib": None if peak is None else round(peak / 2**30, 2),
         "total_deleterious_calls": calls,
@@ -113,10 +81,7 @@ def main():
         "injected_outlier_cells": len(spiked),
         "injected_cells_flagged": hits,
         "result_rows": int(len(res_cold)),
-        "calls_match_across_runs": (
-            res_cold.tot_deleterious_outliers.tolist()
-            == res_warm.tot_deleterious_outliers.tolist()
-        ),
+        "calls_match_across_runs": runs[0]["calls"] == runs[1]["calls"],
     }
     print(json.dumps(out, indent=1), flush=True)
     if args.json:

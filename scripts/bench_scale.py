@@ -1,19 +1,20 @@
 """Production-scale single-chip benchmark: 50k genes x 100 samples.
 
 The reference's map_rect sharding exists to scale the gene axis across CPU
-threads/MPI ranks; this measures the TPU equivalent at the BASELINE.json
+threads/MPI ranks; this measures the one-card equivalent at the BASELINE.json
 synthetic-cohort scale (5M data points, ~100k unconstrained dims) with the
 flagship jittered-HMC path on ONE chip. Draw budget = the approximated-CI
 analysis path's 1000 practical draws (R/utilities.R:1372).
 
 Reports the roofline utilization (utils/roofline: XLA-counted flops/bytes of
 the batched logp+gradient x executed leapfrogs) alongside raw throughput,
-so "fast" has an absolute meaning against the chip's VPU/HBM ceilings.
+so "fast" has an absolute meaning against the card's f32/HBM ceilings.
 
 Usage:
   python scripts/bench_scale.py [--genes 50000] [--samples 100] [--chains 8]
-      [--likelihood auto|plain|analytic|fused|pallas|pallas_fused]
+      [--likelihood auto|plain|analytic|fused|fast]
       [--no-baseline]   # skip delta-form baseline constants
+      [--cpu]           # without it, the script fails when no GPU is present
 """
 
 import argparse
@@ -24,17 +25,23 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
 
-def main(n_genes=50000, n_samples=100, chains=8, likelihood="auto", baseline=True):
-    from ppcseq_tpu.infer.advi import fit_advi
-    from ppcseq_tpu.infer.hmc import run_hmc
-    from ppcseq_tpu.model import nb_model
-    from ppcseq_tpu.utils.roofline import cost_of, utilization
-    from ppcseq_tpu.utils.synthetic import synthetic_cohort
+def main(n_genes=50000, n_samples=100, chains=8, likelihood="auto", baseline=True, cpu=False):
+    from ppcseq.utils import device
+
+    if cpu:
+        device.force_cpu()
+    import jax
+    import jax.numpy as jnp
+
+    dev_info = device.describe(cpu=cpu)
+    from ppcseq.infer.advi import fit_advi
+    from ppcseq.infer.hmc import run_hmc
+    from ppcseq.model import nb_model
+    from ppcseq.utils.roofline import cost_of, utilization
+    from ppcseq.utils.synthetic import synthetic_cohort
 
     counts, X, exposure, _ = synthetic_cohort(n_genes, n_samples, n_check=100, seed=0)
     data, dims = nb_model.prepare_data(counts, X, exposure, 100, dtype=jnp.float32)
@@ -72,7 +79,7 @@ def main(n_genes=50000, n_samples=100, chains=8, likelihood="auto", baseline=Tru
         z_batch, data,
     )
     batched_lf = r.num_leapfrog / chains
-    util = utilization(
+    util = {} if cpu else utilization(
         None if hot["flops"] is None else hot["flops"] * batched_lf / elapsed,
         None if hot["bytes"] is None else hot["bytes"] * batched_lf / elapsed,
         jax.devices()[0],
@@ -94,7 +101,7 @@ def main(n_genes=50000, n_samples=100, chains=8, likelihood="auto", baseline=Tru
             "leapfrogs_per_sec": round(r.num_leapfrog / elapsed, 1),
             "divergences": int(r.divergences.sum()),
             "mean_accept": round(float(r.accept_prob.mean()), 3),
-            "device": str(jax.devices()[0]),
+            **dev_info,
             **util,
         },
     }), flush=True)
@@ -107,5 +114,6 @@ if __name__ == "__main__":
     ap.add_argument("--chains", type=int, default=8)
     ap.add_argument("--likelihood", default="auto")
     ap.add_argument("--no-baseline", action="store_true")
+    ap.add_argument("--cpu", action="store_true", help="measure the CPU backend")
     a = ap.parse_args()
-    main(a.genes, a.samples, a.chains, a.likelihood, not a.no_baseline)
+    main(a.genes, a.samples, a.chains, a.likelihood, not a.no_baseline, a.cpu)

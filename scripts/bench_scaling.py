@@ -46,11 +46,11 @@ def run_gene_sharded(n_genes=4096, n_samples=50, chains=8, warmup=40, draws=60):
     import jax
     import jax.numpy as jnp
 
-    from ppcseq_tpu.infer.hmc import run_hmc_tree
-    from ppcseq_tpu.model import nb_model
-    from ppcseq_tpu.model.params import zeros_tree
-    from ppcseq_tpu.parallel.sharding import gene_mesh, pad_genes
-    from ppcseq_tpu.utils.synthetic import synthetic_cohort
+    from ppcseq.infer.hmc import run_hmc_tree
+    from ppcseq.model import nb_model
+    from ppcseq.model.params import zeros_tree
+    from ppcseq.parallel.sharding import gene_mesh, pad_genes
+    from ppcseq.utils.synthetic import synthetic_cohort
 
     counts, X, exposure, _ = synthetic_cohort(n_genes, n_samples, n_check=64, seed=0)
     n_devices = len(jax.devices())
@@ -109,11 +109,11 @@ def run_gene_sharded_nuts(n_genes=4096, n_samples=50, chains=8, warmup=50,
     import jax
     import jax.numpy as jnp
 
-    from ppcseq_tpu.infer.nuts import run_nuts
-    from ppcseq_tpu.model import nb_model
-    from ppcseq_tpu.model.params import zeros_tree
-    from ppcseq_tpu.parallel.sharding import gene_mesh, pad_genes
-    from ppcseq_tpu.utils.synthetic import synthetic_cohort
+    from ppcseq.infer.nuts import run_nuts
+    from ppcseq.model import nb_model
+    from ppcseq.model.params import zeros_tree
+    from ppcseq.parallel.sharding import gene_mesh, pad_genes
+    from ppcseq.utils.synthetic import synthetic_cohort
 
     counts, X, exposure, _ = synthetic_cohort(n_genes, n_samples, n_check=64, seed=0)
     n_devices = len(jax.devices())
@@ -187,9 +187,9 @@ def run_chain_sharded(n_genes=2048, n_samples=50, chains=64, warmup=40, draws=60
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from ppcseq_tpu.infer.hmc import run_hmc
-    from ppcseq_tpu.model import nb_model
-    from ppcseq_tpu.utils.synthetic import synthetic_cohort
+    from ppcseq.infer.hmc import run_hmc
+    from ppcseq.model import nb_model
+    from ppcseq.utils.synthetic import synthetic_cohort
 
     counts, X, exposure, _ = synthetic_cohort(n_genes, n_samples, n_check=64, seed=0)
     data, dims = nb_model.prepare_data(counts, X, exposure, 64, dtype=jnp.float32)

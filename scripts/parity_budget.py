@@ -19,7 +19,7 @@ the data-layer perturbation required to FLIP its outlier call:
 - `d_logphi_to_flip`: same for the gene's log overdispersion (posterior-width
   analog: VB under-dispersion vs exact MCMC)
 
-Writes PARITY_BUDGET.json. Run on the TPU by default, --cpu for local.
+Writes PARITY_BUDGET.json. Runs on JAX's default platform, --cpu for the CPU.
 
     python scripts/parity_budget.py [--cpu] [--mcmc|--nuts] [--seed 42]
 """
@@ -106,8 +106,8 @@ def main():
 
         jax.config.update("jax_enable_x64", True)
 
-    from ppcseq_tpu import identify_outliers, load_counts
-    from ppcseq_tpu.utils.constants import TRUNCATION_COMPENSATION_PASS2
+    from ppcseq import identify_outliers, load_counts
+    from ppcseq.utils.constants import TRUNCATION_COMPENSATION_PASS2
 
     counts = load_counts()
     counts = counts.assign(is_significant=counts.FDR < 0.01)

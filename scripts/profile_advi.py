@@ -1,4 +1,4 @@
-"""Tune the ADVI warm start's wall time on TPU (it gates end-to-end bench)."""
+"""Tune the ADVI warm start's wall time (it gates end-to-end bench)."""
 
 import os
 import sys
@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ppcseq_tpu.infer.advi import fit_advi
-from ppcseq_tpu.infer.hmc import run_hmc
-from ppcseq_tpu.model import nb_model
+from ppcseq.infer.advi import fit_advi
+from ppcseq.infer.hmc import run_hmc
+from ppcseq.model import nb_model
 from profile_bench import setup
 
 

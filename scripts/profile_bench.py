@@ -1,4 +1,4 @@
-"""Phase-level profiling of the bench configuration on the real TPU.
+"""Phase-level profiling of the bench configuration on the accelerator.
 
 Times ADVI warm start, NUTS warmup, and NUTS sampling separately, at several
 chain counts / warmup lengths, to locate the draws/sec ceiling.
@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ppcseq_tpu import load_counts
-from ppcseq_tpu.data import ingest
-from ppcseq_tpu.formula.design import create_design_matrix
-from ppcseq_tpu.infer.advi import fit_advi
-from ppcseq_tpu.infer.nuts import run_nuts
-from ppcseq_tpu.model import nb_model
-from ppcseq_tpu.model.params import zeros_tree
-from ppcseq_tpu.norm.tmm import sample_scaling
+from ppcseq import load_counts
+from ppcseq.data import ingest
+from ppcseq.formula.design import create_design_matrix
+from ppcseq.infer.advi import fit_advi
+from ppcseq.infer.nuts import run_nuts
+from ppcseq.model import nb_model
+from ppcseq.model.params import zeros_tree
+from ppcseq.norm.tmm import sample_scaling
 
 
 def setup():

@@ -1,4 +1,4 @@
-"""Compare per-leapfrog latency: pytree state vs flat [D] vector state, on TPU.
+"""Compare per-leapfrog latency: pytree state vs flat [D] vector state.
 
 The NUTS inner loop does ~10 pytree-leaf ops per leapfrog; with a flat
 vector each becomes ONE vector op. This measures the end-to-end NUTS
@@ -16,10 +16,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ppcseq_tpu.infer.advi import fit_advi
-from ppcseq_tpu.infer.nuts import run_nuts
-from ppcseq_tpu.model import nb_model
-from ppcseq_tpu.model.params import zeros_tree
+from ppcseq.infer.advi import fit_advi
+from ppcseq.infer.nuts import run_nuts
+from ppcseq.model import nb_model
+from ppcseq.model.params import zeros_tree
 from profile_bench import setup
 
 

@@ -1,16 +1,14 @@
-"""Leapfrog cost of autodiff vs analytic-VJP likelihood gradients on TPU.
+"""Leapfrog cost of autodiff vs analytic-VJP likelihood gradients.
 
 Times N sequential leapfrogs (the serial core of HMC/NUTS) on the bench
 model (counts 15-gene + 500 controls) for each likelihood implementation:
 - plain:     stable-lpmf forward, autodiff backward
 - delta:     delta-form forward, autodiff backward       (round-2 default)
 - analytic:  same forwards, closed-form custom-VJP backward (ops/nb_grad)
-- pallas:    fused Pallas forward + analytic Pallas backward
-- fast:      hoisted one-pass value+gradient (ops/nb_fast) — round-4 winner
-- pallas-fast: the same math as one Pallas kernel (loses: vmap batches
-  chains into outer grid steps with tiny blocks)
+- fast:      hoisted one-pass value+gradient (ops/nb_fast)
 
-The winner becomes nb_model._resolve_auto's TPU choice.
+`python chip_smoke.py` times the same variants at both real widths in one
+process; its table decides nb_model._resolve_auto.
 """
 
 import os
@@ -23,8 +21,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 import jax
 import jax.numpy as jnp
 
-from ppcseq_tpu.model import nb_model
-from ppcseq_tpu.ops.nb_kernel import make_pallas_likelihood
+from ppcseq.model import nb_model
 from profile_bench import setup
 
 N_STEPS = 512
@@ -71,33 +68,6 @@ def main():
         ("plain-fast     ", nb_model.flat_logp(dims, "fast"), data),
         ("delta-fast     ", nb_model.flat_logp(dims, "fast"), data_base),
     ]
-
-    def pallas_logp(theta, data):
-        return nb_model.log_joint(
-            theta, data, dims, likelihood_fn=make_pallas_likelihood(gene_tile=512)
-        )
-
-    variants.append(("pallas         ", pallas_logp, data))
-
-    from ppcseq_tpu.ops.nb_kernel import make_pallas_fused_likelihood
-
-    def pallas_fused_logp(theta, data):
-        return nb_model.log_joint(
-            theta, data, dims,
-            likelihood_fn=make_pallas_fused_likelihood(gene_tile=512),
-        )
-
-    variants.append(("pallas-fused   ", pallas_fused_logp, data_base))
-
-    from ppcseq_tpu.ops.nb_kernel import make_pallas_fast_likelihood
-
-    def pallas_fast_logp(theta, data):
-        return nb_model.log_joint(
-            theta, data, dims,
-            likelihood_fn=make_pallas_fast_likelihood(gene_tile=512),
-        )
-
-    variants.append(("pallas-fast    ", pallas_fast_logp, data_base))
 
     for chains in (128, 512):
         print(f"--- chains={chains} ---")

@@ -1,4 +1,4 @@
-"""Time jittered HMC on the bench model (counts, G=515) on the real TPU."""
+"""Time jittered HMC on the bench model (counts, G=515) on the accelerator."""
 
 import os
 import sys
@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ppcseq_tpu.infer.advi import fit_advi
-from ppcseq_tpu.infer.hmc import run_hmc
-from ppcseq_tpu.model import nb_model
+from ppcseq.infer.advi import fit_advi
+from ppcseq.infer.hmc import run_hmc
+from ppcseq.model import nb_model
 from profile_bench import setup
 
 

@@ -9,7 +9,7 @@ frequencies, turning "seed-dependent" into a measured number.
 
     python scripts/seed_study.py --seeds 50 --out PARITY_SEEDS_vb.json
     python scripts/seed_study.py --nuts --seeds 10 --out PARITY_SEEDS_nuts.json
-    python scripts/seed_study.py --cpu ...   (default platform is the TPU)
+    python scripts/seed_study.py --cpu ...   (default: JAX's default platform)
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
 
-    from ppcseq_tpu import identify_outliers, load_counts
-    from ppcseq_tpu.utils.compilation_cache import enable as enable_xla_cache
+    from ppcseq import identify_outliers, load_counts
+    from ppcseq.utils.compilation_cache import enable as enable_xla_cache
 
     enable_xla_cache()
 

@@ -4,15 +4,15 @@ The pipeline's MCMC fits run 128 chains x ceil(1000/128)=8 draws/chain
 (the approximate-analysis budget, identify.py; reference
 R/utilities.R:1372) with K.HMC_WARMUP / K.HMC_LEAPFROG — constants that
 were previously picked at the BENCH budget (10.5k draws, L=48,
-SWEEP_HMC_r4.json) and never re-swept at the pipeline's. At 8 draws/chain
+scripts/sweep_hmc.py) and never re-swept at the pipeline's. At 8 draws/chain
 rhat/ESS cannot catch step-size under-adaptation, so the quality metric
 here is direct: posterior-mean bias of the call-driving block
 (6 hyperparameters + the 15 slopes) against a long reference fit, in
 units of the reference posterior sd, across seeds.
 
-    python scripts/sweep_pipeline_hmc.py [--json SWEEP_PIPELINE_r5.json]
+    python scripts/sweep_pipeline_hmc.py [--json OUT.json]
 
-Runs on the default (TPU) backend; pass --cpu to validate the harness.
+Runs on JAX's default backend; pass --cpu to validate the harness.
 """
 
 from __future__ import annotations
@@ -46,13 +46,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from ppcseq_tpu import load_counts
-    from ppcseq_tpu.data import ingest
-    from ppcseq_tpu.formula.design import create_design_matrix
-    from ppcseq_tpu.infer.advi import fit_advi
-    from ppcseq_tpu.infer.hmc import run_hmc
-    from ppcseq_tpu.model import nb_model
-    from ppcseq_tpu.norm.tmm import sample_scaling
+    from ppcseq import load_counts
+    from ppcseq.data import ingest
+    from ppcseq.formula.design import create_design_matrix
+    from ppcseq.infer.advi import fit_advi
+    from ppcseq.infer.hmc import run_hmc
+    from ppcseq.model import nb_model
+    from ppcseq.norm.tmm import sample_scaling
 
     # the pipeline's own pass-1 model data: bundled cohort, FDR<0.01 genes
     counts = load_counts()

@@ -47,11 +47,11 @@ import scipy.stats
 import jax
 import jax.numpy as jnp
 
-from ppcseq_tpu.model import nb_model
-from ppcseq_tpu.model.nb_model import LAMBDA_MU_MU
-from ppcseq_tpu.infer.advi import fit_advi
-from ppcseq_tpu.infer.hmc import run_hmc
-from ppcseq_tpu.ops.nb import nb2_log_rng
+from ppcseq.model import nb_model
+from ppcseq.model.nb_model import LAMBDA_MU_MU
+from ppcseq.infer.advi import fit_advi
+from ppcseq.infer.hmc import run_hmc
+from ppcseq.ops.nb import nb2_log_rng
 
 S, G, N_CHECK = 10, 14, 5
 N_REP = 20

@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from ppcseq_tpu.data.ingest import (
+from ppcseq.data.ingest import (
     build_model_data,
     check_columns_exist,
     check_if_any_na,
@@ -78,7 +78,7 @@ def test_format_input_indices(counts_df):
 def test_build_model_data(counts_df):
     df = counts_df.assign(is_significant=counts_df.symbol.isin(["SLC16A12", "CYP1A1", "ART3"]))
     my_df = format_input(df, "~ Label", "sample", "symbol", "value", "is_significant", "PValue", 50)
-    from ppcseq_tpu.formula.design import create_design_matrix
+    from ppcseq.formula.design import create_design_matrix
 
     X, names, rows = create_design_matrix(my_df, "~ Label", "sample")
     exposure = {s: 0.1 for s in my_df["sample"].unique()}

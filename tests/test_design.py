@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from ppcseq_tpu.formula.design import (
+from ppcseq.formula.design import (
     create_design_matrix,
     model_matrix,
     parse_formula,

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from ppcseq_tpu.infer.diagnostics import ess, split_rhat, summarize
+from ppcseq.infer.diagnostics import ess, split_rhat, summarize
 
 
 def test_rhat_iid_near_one():
@@ -55,7 +55,7 @@ def test_hmc_draws_pass_diagnostics():
     import jax
     import jax.numpy as jnp
 
-    from ppcseq_tpu.infer.hmc import run_hmc
+    from ppcseq.infer.hmc import run_hmc
 
     D = 4
     def logp(x):

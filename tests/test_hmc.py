@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ppcseq_tpu.infer.hmc import run_hmc
+from ppcseq.infer.hmc import run_hmc
 
 
 def test_hmc_correlated_gaussian_moments():
@@ -57,7 +57,7 @@ def test_chees_adaptive_trajectory_gaussian():
     assert res.divergences.sum() == 0
     draws = res.draws.reshape(-1, D)
     np.testing.assert_allclose(draws.mean(axis=0), mu, atol=0.1)
-    from ppcseq_tpu.infer.diagnostics import summarize
+    from ppcseq.infer.diagnostics import summarize
 
     s = summarize(res.draws)
     assert s["rhat_max"] < 1.05
@@ -84,7 +84,7 @@ def test_snaper_targets_slow_directions():
     # optimal T for the slow block ~ slow_sd * pi/2 ~ 15.7; the fast block
     # alone would prefer T ~ 1.6. Require T to be well past the fast scale.
     assert res.trajectory_length > 5.0, res.trajectory_length
-    from ppcseq_tpu.infer.diagnostics import summarize
+    from ppcseq.infer.diagnostics import summarize
 
     s = summarize(res.draws[:, :, D_fast:])  # the slow block must mix
     assert s["rhat_max"] < 1.1, s
@@ -94,8 +94,8 @@ def test_snaper_targets_slow_directions():
 
 def test_hmc_nb_model_agrees_with_advi():
     """On a small NB model, HMC posterior means match the ADVI means."""
-    from ppcseq_tpu.infer.advi import fit_advi
-    from ppcseq_tpu.model import nb_model
+    from ppcseq.infer.advi import fit_advi
+    from ppcseq.model import nb_model
 
     rng = np.random.default_rng(1)
     S, G, n_check = 8, 24, 4

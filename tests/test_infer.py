@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ppcseq_tpu.infer.advi import advi_sample, fit_advi, vb_iterative
-from ppcseq_tpu.infer.chains import (
+from ppcseq.infer.advi import advi_sample, fit_advi, vb_iterative
+from ppcseq.infer.chains import (
     chains_for_run,
     find_optimal_number_of_chains,
     mcmc_iterations,
 )
-from ppcseq_tpu.infer.nuts import build_warmup_schedule, run_nuts
+from ppcseq.infer.nuts import build_warmup_schedule, run_nuts
 
 
 def _gaussian_logp(mu, sd):

@@ -7,21 +7,21 @@ import scipy.stats as st
 import jax
 import jax.numpy as jnp
 
-from ppcseq_tpu.model.nb_model import (
+from ppcseq.model.nb_model import (
     ModelDims,
     log_joint,
     make_alpha,
     prepare_data,
     unpack,
 )
-from ppcseq_tpu.ops.nb import (
+from ppcseq.ops.nb import (
     double_exponential_lpdf,
     nb2_log_lpmf,
     nb2_log_rng,
     normal_lpdf,
     skew_normal_lpdf,
 )
-from ppcseq_tpu.utils.constants import LAMBDA_MU_MU
+from ppcseq.utils.constants import LAMBDA_MU_MU
 
 
 def test_nb2_lpmf_matches_scipy():
@@ -37,7 +37,7 @@ def test_nb2_lpmf_matches_scipy():
 
 
 def test_nb2_lpmf_stable_decomposition_matches_scipy():
-    from ppcseq_tpu.ops.nb import nb2_log_lpmf_stable
+    from ppcseq.ops.nb import nb2_log_lpmf_stable
 
     rng = np.random.default_rng(11)
     y = np.concatenate([rng.integers(0, 8, 500), rng.integers(8, 30000, 500)])
@@ -185,7 +185,7 @@ def test_non_centered_is_change_of_variables():
         counts, X, exposure, n_check, non_centered=True, dtype=jnp.float64
     )
 
-    from ppcseq_tpu.model.nb_model import log_joint_tree, theta_to_tree, unpack_tree
+    from ppcseq.model.nb_model import log_joint_tree, theta_to_tree, unpack_tree
 
     theta_nc = theta_to_tree(jnp.asarray(rng.normal(size=dims_nc.dim) * 0.3), dims_nc)
     params, _ = unpack_tree(theta_nc, non_centered=True)
@@ -216,7 +216,7 @@ def test_log_joint_exclusion_mask_subtracts_lpmf():
     lp0 = float(log_joint(theta, data0, dims))
     lp1 = float(log_joint(theta, data1, dims))
 
-    from ppcseq_tpu.model.nb_model import lambda_log
+    from ppcseq.model.nb_model import lambda_log
 
     params, _ = unpack(theta, dims)
     eta = np.asarray(data0.exposure_rate)[:, None] + np.asarray(lambda_log(params, data0, dims))

@@ -11,9 +11,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ppcseq_tpu.model import nb_model
-from ppcseq_tpu.ops.nb import nb2_log_lpmf
-from ppcseq_tpu.ops.nb_grad import nb2_grads, likelihood_grads
+from ppcseq.model import nb_model
+from ppcseq.ops.nb import nb2_log_lpmf
+from ppcseq.ops.nb_grad import nb2_grads, likelihood_grads
 
 
 def _stress_grid():

@@ -9,7 +9,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from ppcseq_tpu import identify_outliers, load_counts
+from ppcseq import identify_outliers, load_counts
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from ppcseq_tpu import identify_outliers, load_counts, plot_credible_intervals
+from ppcseq import identify_outliers, load_counts, plot_credible_intervals
 
 
 @pytest.fixture(scope="module")
@@ -96,6 +96,27 @@ def test_approx_analysis_auto_switch(small_counts):
     assert len(res) == 3
 
 
+def test_exact_ci_memory_switch_reads_the_draws_device(monkeypatch):
+    """The exact-CI feasibility switch reads the accelerator's allocator
+    limit on the device that holds the draws (the mesh's first device when
+    a mesh is given) and host RAM only on the CPU backend."""
+    import os
+    from types import SimpleNamespace
+
+    from ppcseq.pipeline import identify
+
+    host_ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert identify._available_memory_bytes() == host_ram
+
+    def gpu(limit):
+        return SimpleNamespace(platform="gpu", memory_stats=lambda: {"bytes_limit": limit})
+
+    monkeypatch.setattr(identify.jax, "devices", lambda *a: [gpu(60e9)])
+    assert identify._available_memory_bytes() == 60e9
+    mesh = SimpleNamespace(devices=np.array([gpu(40e9), gpu(40e9)]))
+    assert identify._available_memory_bytes(mesh) == 40e9
+
+
 def test_plot_credible_intervals(small_counts):
     res = identify_outliers(small_counts, formula="~ Label", **_BASE)
     out = plot_credible_intervals(res)
@@ -118,8 +139,8 @@ def test_hmc_adapt_trajectory_in_product():
     import pytest
     from jax.sharding import Mesh
 
-    from ppcseq_tpu.pipeline.identify import identify_outliers
-    from ppcseq_tpu.utils.synthetic import synthetic_tidy
+    from ppcseq.pipeline.identify import identify_outliers
+    from ppcseq.utils.synthetic import synthetic_tidy
 
     df = synthetic_tidy(n_genes=48, n_samples=8, n_check=3, outlier_frac=0.15, seed=0)
     res = identify_outliers(

@@ -15,7 +15,7 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
-from ppcseq_tpu import identify_outliers, load_counts
+from ppcseq import identify_outliers, load_counts
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +74,7 @@ def test_gene_sharded_hmc_pipeline_synthetic():
     """Gene+chain 2-D mesh through the MCMC branch on a small synthetic
     cohort: the full tree-state path (ADVI warm start -> run_hmc_tree ->
     sharded extraction/PPC) end to end."""
-    from ppcseq_tpu.utils.synthetic import synthetic_tidy
+    from ppcseq.utils.synthetic import synthetic_tidy
 
     df = synthetic_tidy(n_genes=64, n_samples=8, n_check=3, seed=0)
     mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("chains", "genes"))

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ppcseq_tpu.ppc.rng import approximated_ci, counts_rng_draws, exact_ci, summarize_draws
+from ppcseq.ppc.rng import approximated_ci, counts_rng_draws, exact_ci, summarize_draws
 
 
 def test_quantile_type7_matches_r():

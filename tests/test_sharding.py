@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ppcseq_tpu.model import nb_model
-from ppcseq_tpu.model.params import zeros_tree
-from ppcseq_tpu.parallel.sharding import (
+from ppcseq.model import nb_model
+from ppcseq.model.params import zeros_tree
+from ppcseq.parallel.sharding import (
     gene_mesh,
     pad_genes,
     shard_data,
@@ -29,7 +29,8 @@ def tiny():
 def test_mesh_and_padding():
     mesh = gene_mesh(8)
     assert mesh.shape["genes"] == 8
-    assert pad_genes(515, mesh) == 1024  # 128 * 8
+    assert pad_genes(515, mesh) == 520  # 65 genes on each of 8 shards
+    assert pad_genes(512, mesh) == 512
 
 
 def test_sharded_log_joint_matches_unsharded(tiny):
@@ -57,7 +58,7 @@ def test_sharded_log_joint_matches_unsharded(tiny):
 
 
 def test_sharded_nuts_runs(tiny):
-    from ppcseq_tpu.infer.nuts import run_nuts
+    from ppcseq.infer.nuts import run_nuts
 
     counts, X, exposure, n_check = tiny
     mesh = gene_mesh(8)
@@ -80,7 +81,7 @@ def test_gene_sharded_tree_hmc(tiny):
     """Gene-sharded tree-state jittered HMC on the 8-device mesh: the
     measurable-at-scale map_rect analog (fixed-shape scans, fast GSPMD
     partitioning — unlike the while_loop-heavy NUTS tree build)."""
-    from ppcseq_tpu.infer.hmc import run_hmc_tree
+    from ppcseq.infer.hmc import run_hmc_tree
 
     counts, X, exposure, n_check = tiny
     mesh = gene_mesh(8)
@@ -105,7 +106,7 @@ def test_gene_sharded_tree_hmc(tiny):
 def test_tree_hmc_matches_flat_hmc_moments(tiny):
     """The tree-state runner is the same algorithm as the flat runner: with
     identical configs their posterior moments agree within MC error."""
-    from ppcseq_tpu.infer.hmc import run_hmc, run_hmc_tree
+    from ppcseq.infer.hmc import run_hmc, run_hmc_tree
 
     counts, X, exposure, n_check = tiny
     data, dims = nb_model.prepare_data(counts, X, exposure, n_check, dtype=jnp.float32)
@@ -128,7 +129,7 @@ def test_chain_sharded_hmc(tiny):
     """Flagship HMC with the chain batch sharded over an 8-device mesh."""
     from jax.sharding import Mesh
 
-    from ppcseq_tpu.infer.hmc import run_hmc
+    from ppcseq.infer.hmc import run_hmc
 
     counts, X, exposure, n_check = tiny
     data, dims = nb_model.prepare_data(counts, X, exposure, n_check, dtype=jnp.float32)
@@ -196,7 +197,7 @@ def test_gene_sharded_nuts_2d_mesh_shards_chains(tiny):
     axis but called run_nuts without the mesh, so nothing sharded)."""
     from jax.sharding import Mesh
 
-    from ppcseq_tpu.infer.nuts import run_nuts
+    from ppcseq.infer.nuts import run_nuts
 
     counts, X, exposure, n_check = tiny
     mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("chains", "genes"))

@@ -18,8 +18,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ppcseq_tpu.model import nb_model
-from ppcseq_tpu.parallel.sharding import gene_mesh, shard_data, shard_params
+from ppcseq.model import nb_model
+from ppcseq.parallel.sharding import gene_mesh, shard_data, shard_params
 
 
 @pytest.fixture(scope="module")
@@ -78,8 +78,8 @@ def test_gene_sharded_hmc_runner_compiles_fast(sharded_setup):
     the 8-device mesh must GSPMD-partition in seconds — the guard against
     reintroducing while_loop-style partitioning blowups into the at-scale
     gene-sharded path."""
-    from ppcseq_tpu.infer.hmc import run_hmc_tree
-    from ppcseq_tpu.model.params import zeros_tree
+    from ppcseq.infer.hmc import run_hmc_tree
+    from ppcseq.model.params import zeros_tree
 
     mesh, data_sh, dims, init = sharded_setup
     logp = nb_model.tree_logp(dims, likelihood="plain")
@@ -95,7 +95,7 @@ def test_gene_sharded_hmc_runner_compiles_fast(sharded_setup):
 
 
 def test_gene_sharded_fast_likelihood_collectives_and_value(sharded_setup):
-    """The TPU production likelihood ('fast', ops/nb_fast) under the genes
+    """The fused production likelihood ('fast', ops/nb_fast) under the genes
     mesh: same single-all-reduce contract as 'plain', and identical value +
     gradient (the sharded program must not change the math). Pinned here
     because CPU tests resolve 'auto' to 'plain' — without this case the

@@ -3,7 +3,7 @@
 import numpy as np
 import pandas as pd
 
-from ppcseq_tpu.norm.tmm import (
+from ppcseq.norm.tmm import (
     _calc_factor_tmm,
     _rank_average,
     filter_by_expr,
@@ -123,7 +123,7 @@ def _tmm_factors_independent(counts, ref_column):
 def _readme_subset_matrix(counts_df):
     """The exact count matrix the 15-gene README run feeds to TMM: 15
     FDR<0.01 genes + 500 negative controls, samples as (sorted) columns."""
-    from ppcseq_tpu.data.ingest import format_input
+    from ppcseq.data.ingest import format_input
 
     df = counts_df.assign(is_significant=counts_df.FDR < 0.01)
     my_df = format_input(
@@ -144,7 +144,7 @@ def _readme_subset_matrix(counts_df):
 def test_tmm_independent_transcription_matches_on_readme_subset(counts_df):
     """Three-way agreement on the real 515x21 README matrix: NumPy path,
     native C++ path, and the independent scipy transcription."""
-    from ppcseq_tpu import _native
+    from ppcseq import _native
 
     mat, ref_idx, _ = _readme_subset_matrix(counts_df)
     assert mat.shape == (515, 21)
@@ -160,7 +160,7 @@ def test_tmm_exposure_rates_on_readme_subset_are_stable(counts_df):
     """Pin the exposure rates of the README run (the likelihood data the
     CCNA1/MMP8 knife-edge calls are sensitive to) so any future drift in
     the TMM layer is caught immediately."""
-    from ppcseq_tpu.data.ingest import format_input
+    from ppcseq.data.ingest import format_input
 
     df = counts_df.assign(is_significant=counts_df.FDR < 0.01)
     my_df = format_input(
@@ -219,7 +219,7 @@ def test_tmm_single_positive_overlap_gene():
 
 
 def test_sample_scaling_on_counts_subset(counts_df):
-    from ppcseq_tpu.data.ingest import format_input
+    from ppcseq.data.ingest import format_input
 
     df = counts_df.assign(is_significant=counts_df.symbol.isin(["SLC16A12", "CYP1A1", "ART3"]))
     my_df = format_input(df, "~ Label", "sample", "symbol", "value", "is_significant", "PValue", 50)
@@ -241,9 +241,9 @@ def test_sample_scaling_fast_path_matches_pandas_path():
     vectorization)."""
     import numpy as np
 
-    from ppcseq_tpu.data import ingest
-    from ppcseq_tpu.norm.tmm import sample_scaling
-    from ppcseq_tpu.utils.synthetic import synthetic_tidy
+    from ppcseq.data import ingest
+    from ppcseq.norm.tmm import sample_scaling
+    from ppcseq.utils.synthetic import synthetic_tidy
 
     df = synthetic_tidy(n_genes=200, n_samples=12, n_check=5, seed=3)
     work = df.assign(do_check___=df["do_check"].astype(bool))

@@ -10,8 +10,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from ppcseq_tpu import identify_outliers
-from ppcseq_tpu.utils.synthetic import synthetic_cohort
+from ppcseq import identify_outliers
+from ppcseq.utils.synthetic import synthetic_cohort
 
 
 @pytest.fixture(scope="module")
